@@ -19,7 +19,7 @@ import time
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="avl-dec", description="TPU-native AV1 decoder")
+        prog="avl-dec", description="AV1 decoder")
     p.add_argument("input", help="input .ivf/.webm/.obu file")
     p.add_argument("-o", "--output", default=None, help="output .y4m")
     p.add_argument("--md5", action="store_true",
@@ -46,8 +46,6 @@ def _open_input(path: str, annexb: bool):
 
 
 def main(argv=None) -> int:
-    from ..utils.backend import ensure_backend
-    ensure_backend()
     args = build_parser().parse_args(argv)
     from ..api import Decoder
     from ..utils.y4m import write_y4m

@@ -29,7 +29,7 @@ _SPECIAL = {"cq-level", "tile-columns", "tile-rows", "cpu-used"}
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="avl-enc", description="TPU-native AV1 encoder")
+        prog="avl-enc", description="AV1 encoder")
     p.add_argument("input", help="input .y4m file")
     p.add_argument("-o", "--output", required=True, help="output .ivf")
     p.add_argument("--limit", type=int, default=0,
@@ -89,8 +89,6 @@ def _report(args, frames, fps, t0) -> int:
 
 
 def main(argv=None) -> int:
-    from ..utils.backend import ensure_backend
-    ensure_backend()
     args = build_parser().parse_args(argv)
     from ..api import (USAGE_ALL_INTRA, USAGE_GOOD_QUALITY,
                        USAGE_REALTIME, Encoder, EncoderConfig)

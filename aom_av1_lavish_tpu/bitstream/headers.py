@@ -7,7 +7,7 @@ av1/decoder/obu.c:847 for the read path).  Both writer and parser are
 implemented so our own streams round-trip and reference streams can be
 inspected/decoded.
 
-Scope note: fields for tools the TPU encoder does not yet emit (timing info,
+Scope note: fields for tools the encoder does not yet emit (timing info,
 decoder model, scalability metadata) are supported only in their "absent"
 configuration; the parser asserts on inputs that use them.
 """

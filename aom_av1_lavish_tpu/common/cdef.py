@@ -148,16 +148,66 @@ def filter_block(inb: np.ndarray, pri_strength: int, sec_strength: int,
     return y.astype(np.int32)
 
 
+def _msb_capped(v, cap: int):
+    """min(floor(log2(v)), cap) per element for v > 0, and 0 for v == 0."""
+    return sum(((v >> b) > 0).astype(np.int64) for b in range(1, cap + 1))
+
+
+def _filter_blocks(win, pri, sec, direction, damping: int, bw: int,
+                   bh: int, coeff_shift: int):
+    """filter_block over N blocks at once: win (N, bh+4, bw+4) int32;
+    pri/sec/direction (N,) per-block strengths and directions.  Every
+    branch of filter_block becomes a per-block mask."""
+    N = win.shape[0]
+    n = np.arange(N)[:, None, None]
+    ii = np.arange(bh)[None, :, None]
+    jj = np.arange(bw)[None, None, :]
+    x = win[:, 2:2 + bh, 2:2 + bw].astype(np.int64)
+    en_p = (pri != 0)[:, None, None]
+    en_s = (sec != 0)[:, None, None]
+    total = np.zeros((N, bh, bw), np.int64)
+    mx = x.copy()
+    mn = x.copy()
+    dirs = np.asarray(_DIRS, np.int64)                       # (8, 2, 2)
+    pri_taps = np.asarray(_PRI_TAPS, np.int64)[(pri >> coeff_shift) & 1]
+
+    def constrain(diff, threshold):
+        shift = np.maximum(0, damping - _msb_capped(threshold, 15))
+        ad = np.abs(diff)
+        lim = np.maximum(0, threshold[:, None, None]
+                         - (ad >> shift[:, None, None]))
+        return np.sign(diff) * np.minimum(ad, lim)
+
+    def tap(d, k, s):
+        p = win[n, 2 + s * dirs[d, k, 0][:, None, None] + ii,
+                2 + s * dirs[d, k, 1][:, None, None] + jj].astype(np.int64)
+        nonlocal mx, mn
+        mx = np.where(p != CDEF_VERY_LARGE, np.maximum(p, mx), mx)
+        mn = np.minimum(p, mn)
+        return p
+
+    for k in range(2):
+        for s in (1, -1):
+            p = tap(direction, k, s)
+            total += np.where(en_p, pri_taps[:, k, None, None]
+                              * constrain(p - x, pri), 0)
+            for doff in (2, -2):
+                p = tap((direction + doff) % 8, k, s)
+                total += np.where(en_s, _SEC_TAPS[k] * constrain(p - x, sec),
+                                  0)
+    y = x + ((8 + total - (total < 0)) >> 4)
+    return np.where(en_p & en_s, np.clip(y, mn, mx), y)
+
+
 def cdef_frame(planes, mi_rows, mi_cols, ss_x, ss_y, num_planes,
                skip_grid, strength_grid, fh, bd=8):
     """Apply CDEF in place over mi-aligned planes.
 
     skip_grid: (mi_rows, mi_cols) skip_txfm per mi; strength_grid:
     per-64x64 cdef_strength index (-1 = not coded); fh carries the parsed
-    cdef_* frame parameters."""
+    cdef_* frame parameters.  All 8x8 blocks of the frame filter as one
+    batch (_filter_blocks); filter_block is the per-block reference."""
     coeff_shift = bd - 8
-    nvfb = (mi_rows + 15) // 16
-    nhfb = (mi_cols + 15) // 16
     w = mi_cols * 4
     h = mi_rows * 4
     pristine = []
@@ -170,76 +220,74 @@ def cdef_frame(planes, mi_rows, mi_cols, ss_x, ss_y, num_planes,
             planes[p][:h >> sy, :w >> sx]
         pristine.append(buf)
 
-    damping = fh.cdef_damping
-    for fbr in range(nvfb):
-        for fbc in range(nhfb):
-            sidx = strength_grid[fbr, fbc]
-            if sidx < 0:
-                continue
-            y_lvl = fh.cdef_y_pri[sidx]
-            y_sec = fh.cdef_y_sec[sidx]
-            y_sec += y_sec == 3
-            uv_lvl = fh.cdef_uv_pri[sidx] if num_planes > 1 else 0
-            uv_sec = fh.cdef_uv_sec[sidx] if num_planes > 1 else 0
-            uv_sec += uv_sec == 3
-            if y_lvl == 0 and y_sec == 0 and uv_lvl == 0 and uv_sec == 0:
-                continue
-            # 8x8 skip list
-            maxr = min(16, mi_rows - fbr * 16)
-            maxc = min(16, mi_cols - fbc * 16)
-            blocks = []
-            for r in range(0, maxr, 2):
-                for cc in range(0, maxc, 2):
-                    mr = fbr * 16 + r
-                    mc = fbc * 16 + cc
-                    sk = skip_grid[mr:min(mr + 2, mi_rows),
-                                   mc:min(mc + 2, mi_cols)]
-                    if not sk.all():
-                        blocks.append((r >> 1, cc >> 1))
-            if not blocks:
-                continue
-            # directions from luma
-            y8 = np.stack([
-                pristine[0][4 + fbr * 64 + 8 * by:4 + fbr * 64 + 8 * by + 8,
-                            4 + fbc * 64 + 8 * bx:4 + fbc * 64 + 8 * bx + 8]
-                for (by, bx) in blocks])
-            dirs, variances = find_dir_blocks(y8, coeff_shift)
-            if num_planes > 1 and ss_x != ss_y:
-                # 4:2:2 / 4:4:0 chroma: directions remap to the
-                # subsampled geometry (cdef_block.c:361 conv422/conv440)
-                conv = (np.array([7, 0, 2, 4, 5, 6, 6, 6]) if ss_x
-                        else np.array([1, 2, 2, 2, 3, 4, 6, 0]))
-                chroma_dirs = conv[dirs]
-            else:
-                chroma_dirs = dirs
-            for plane in range(num_planes):
-                sx = ss_x if plane else 0
-                sy = ss_y if plane else 0
-                lvl = y_lvl if plane == 0 else uv_lvl
-                sec = y_sec if plane == 0 else uv_sec
-                if plane and lvl == 0 and sec == 0:
-                    continue
-                pri_strength = lvl << coeff_shift
-                sec_strength = sec << coeff_shift
-                dmp = damping + coeff_shift - (1 if plane else 0)
-                bw = 8 >> sx
-                bh = 8 >> sy
-                for bi, (by, bx) in enumerate(blocks):
-                    py = (fbr * 64 + 8 * by) >> sy
-                    px = (fbc * 64 + 8 * bx) >> sx
-                    if plane == 0:
-                        t = adjust_strength(pri_strength,
-                                            int(variances[bi]))
-                    else:
-                        t = pri_strength
-                    if t == 0 and sec_strength == 0:
-                        continue
-                    d = int((dirs if plane == 0 else chroma_dirs)[bi]) \
-                        if pri_strength else 0
-                    inb = pristine[plane][4 + py - 2:4 + py + bh + 2,
-                                          4 + px - 2:4 + px + bw + 2]
-                    out = filter_block(inb, t, sec_strength, d, dmp, dmp,
-                                       bw, bh, coeff_shift)
-                    planes[plane][py:py + bh, px:px + bw] = \
-                        np.clip(out, 0,
-                                (1 << bd) - 1).astype(planes[plane].dtype)
+    def per_sidx(vals, bump):
+        v = np.asarray(vals, np.int64)
+        return v + (v == 3) if bump else v
+
+    y_pri = per_sidx(fh.cdef_y_pri, False)
+    y_sec = per_sidx(fh.cdef_y_sec, True)
+    uv_pri = per_sidx(fh.cdef_uv_pri, False) if num_planes > 1 else \
+        np.zeros_like(y_pri)
+    uv_sec = per_sidx(fh.cdef_uv_sec, True) if num_planes > 1 else \
+        np.zeros_like(y_sec)
+
+    # 8x8 blocks: the skip list (an 8x8 filters unless all of its mi skip)
+    # and the 64x64 strength index each block falls in
+    r8, c8 = (mi_rows + 1) // 2, (mi_cols + 1) // 2
+    sk = np.ones((2 * r8, 2 * c8), bool)
+    sk[:mi_rows, :mi_cols] = np.asarray(skip_grid[:mi_rows, :mi_cols],
+                                        bool)
+    skip8 = sk.reshape(r8, 2, c8, 2).all((1, 3))
+    by8, bx8 = np.meshgrid(np.arange(r8), np.arange(c8), indexing="ij")
+    sidx = np.asarray(strength_grid)[by8 // 8, bx8 // 8]
+    si = np.maximum(sidx, 0)
+    live = ((sidx >= 0) & ~skip8
+            & ((y_pri[si] | y_sec[si] | uv_pri[si] | uv_sec[si]) != 0))
+    by8, bx8, si = by8[live], bx8[live], si[live]
+    if by8.size == 0:
+        return
+    # directions from luma
+    y8 = pristine[0][4 + 8 * by8[:, None, None] + np.arange(8)[:, None],
+                     4 + 8 * bx8[:, None, None] + np.arange(8)]
+    dirs, variances = find_dir_blocks(y8, coeff_shift)
+    if num_planes > 1 and ss_x != ss_y:
+        # 4:2:2 / 4:4:0 chroma: directions remap to the
+        # subsampled geometry (cdef_block.c:361 conv422/conv440)
+        conv = (np.array([7, 0, 2, 4, 5, 6, 6, 6]) if ss_x
+                else np.array([1, 2, 2, 2, 3, 4, 6, 0]))
+        chroma_dirs = conv[dirs]
+    else:
+        chroma_dirs = dirs
+
+    for plane in range(num_planes):
+        sx = ss_x if plane else 0
+        sy = ss_y if plane else 0
+        lvl = (y_pri if plane == 0 else uv_pri)[si]
+        sec = (y_sec if plane == 0 else uv_sec)[si]
+        pri_strength = lvl << coeff_shift
+        sec_strength = sec << coeff_shift
+        if plane == 0:
+            # adjust_strength, per block
+            i = _msb_capped(variances >> 6, 12)
+            t = np.where(variances == 0, 0,
+                         (pri_strength * (4 + i) + 8) >> 4)
+        else:
+            t = pri_strength
+        go = (t != 0) | (sec_strength != 0)
+        if not go.any():
+            continue
+        d = np.where(pri_strength != 0,
+                     dirs if plane == 0 else chroma_dirs, 0)[go]
+        dmp = fh.cdef_damping + coeff_shift - (1 if plane else 0)
+        bw = 8 >> sx
+        bh = 8 >> sy
+        py = (8 * by8[go]) >> sy
+        px = (8 * bx8[go]) >> sx
+        rows = 4 + py[:, None, None] - 2 + np.arange(bh + 4)[:, None]
+        cols = 4 + px[:, None, None] - 2 + np.arange(bw + 4)
+        win = pristine[plane][rows, cols]
+        out = _filter_blocks(win, t[go], sec_strength[go], d, dmp, bw, bh,
+                             coeff_shift)
+        planes[plane][py[:, None, None] + np.arange(bh)[:, None],
+                      px[:, None, None] + np.arange(bw)] = \
+            np.clip(out, 0, (1 << bd) - 1).astype(planes[plane].dtype)

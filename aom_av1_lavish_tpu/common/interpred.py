@@ -14,7 +14,7 @@ borders are handled by replicate-padding the ref planes (PAD pixels),
 mirroring aom_extend_frame_borders + extend_mc_border.
 
 Vectorized with numpy over whole blocks (host decode path); the batched
-TPU analogue lives in ops/.
+batched device analogue lives in ops/.
 """
 
 from __future__ import annotations

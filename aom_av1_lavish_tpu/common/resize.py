@@ -8,8 +8,8 @@ q14 step/offset derivation of av1_get_upscale_convolve_step
 data/av1_tables.npz ("resize_filter_normative").
 
 The kernel is a pure gather + 8-tap dot product per output column —
-vectorized over all rows at once (the TPU analog is one (rows, out_w, 8)
-gather feeding a tensordot on the MXU).
+vectorized over all rows at once (the device analog is one (rows, out_w, 8)
+gather feeding a tensordot).
 """
 
 from __future__ import annotations

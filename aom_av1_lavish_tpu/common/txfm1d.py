@@ -9,7 +9,7 @@ per-stage op tables generated from the transforms' recursive structure:
 with the odd ladder alternating add/sub stages (group size 2,4,...) and
 mirror-pair rotations whose angles follow a = (64/r)·(1 + 4·bitrev(j, r/4)).
 The same tables drive the scalar numpy engine (host reference) and the
-batched JAX engine (TPU path), so bit-exactness transfers.
+batched JAX engine (device path), so bit-exactness transfers.
 
 Op kinds per output element:
   COPY   out[i] = s0 * in[i0]                       (no clamp, no round)

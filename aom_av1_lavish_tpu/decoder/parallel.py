@@ -66,7 +66,10 @@ def decode_ivf_parallel(path: str, workers: int = 2):
             out.extend(_decode_segment(seg))
         return out
     import multiprocessing as mp
-    with mp.get_context("fork").Pool(min(workers, len(segments))) as pool:
+    # forkserver, not fork: the parent may hold a multithreaded JAX
+    # runtime (and a GPU context) that a forked child must not inherit
+    with mp.get_context("forkserver").Pool(
+            min(workers, len(segments))) as pool:
         results = pool.map(_decode_segment, segments)
     out = []
     for fr in results:

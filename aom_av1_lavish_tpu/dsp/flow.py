@@ -12,7 +12,7 @@ Re-designs the reference's flow stack as vectorized array programs:
 
 Everything is batched over the whole patch grid at once — per-patch
 2x2 solves become vectorized elementwise arithmetic, and the warp is
-one bilinear gather, the shape that maps onto the TPU's VPU/MXU rather
+one bilinear gather, the shape that maps onto vector and matrix units rather
 than the reference's per-corner scalar loops.
 """
 

@@ -1,6 +1,6 @@
 """Quality metrics: PSNR, SSIM, fast MS-SSIM-style multiscale, PSNR-HVS.
 
-TPU-native re-design of the reference metric kernels (aom_dsp/psnr.c,
+Batched re-design of the reference metric kernels (aom_dsp/psnr.c,
 aom_dsp/ssim.c:aom_ssim2 — 8x8 windows stepped by 4, aom_dsp/fastssim.c
 — multiscale SSIM, aom_dsp/psnrhvs.c — 8x8 DCT with CSF weighting).
 Implemented as vectorized numpy on host with jax-compatible math; these

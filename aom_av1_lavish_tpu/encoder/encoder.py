@@ -5,7 +5,7 @@ path) decodable bit-exactly by stock aomdec and by our own decoder
 (reference behavior being mirrored: av1/encoder/bitstream.c write path,
 encodetxb.c coefficient coding, encodeframe.c block walk).
 
-This is the correctness spine of SURVEY.md §7 step 3; the TPU (JAX/Pallas)
+This is the correctness spine of SURVEY.md §7 step 3; the device (JAX/Pallas)
 encode path batches the per-block math (prediction, WHT, tokenization) and
 feeds the same per-tile symbol stream writer.
 """
@@ -296,7 +296,7 @@ class LosslessEncoder:
         self.pad_planes(planes)
 
         # batched analyze: per-4x4 qcoeff + zero flags for every plane
-        # (TPU path; lossless ⇒ recon == source ⇒ fully parallel)
+        # (device path; lossless ⇒ recon == source ⇒ fully parallel)
         if analysis is not None:
             self.analysis = analysis
         elif use_jax and (fh.tile_cols_log2 or fh.tile_rows_log2):

@@ -1,6 +1,6 @@
 """First pass: per-16x16 intra/inter error stats, batched on device.
 
-TPU-native re-design of av1/encoder/firstpass.c (av1_first_pass :1248,
+Batched re-design of av1/encoder/firstpass.c (av1_first_pass :1248,
 FIRSTPASS_STATS :43-174): the reference walks MBs serially doing DC-pred
 intra error + a small MV search; here the whole frame's MB grid is one
 jit call — DC intra error vectorized, inter error as the exhaustive

@@ -3,7 +3,7 @@
 Re-designs the reference's corner-match + RANSAC pipeline
 (av1/encoder/global_motion_facade.c:av1_compute_global_motion,
 aom_dsp/flow_estimation/) as a dense, vectorized pipeline that fits the
-batch-friendly TPU style: a block-translation field measured with
+batch-friendly device style: a block-translation field measured with
 vectorized SAD sweeps, then an IRLS (iteratively-reweighted least
 squares) affine fit with outlier down-weighting, quantized to the AV1
 warp-model grid (av1/common/mv.h GM_*_PREC) and validated through the

@@ -1,6 +1,6 @@
 """Pass 2: bit allocation from first-pass stats.
 
-TPU-native re-design of av1/encoder/pass2_strategy.c
+Re-design of av1/encoder/pass2_strategy.c
 (av1_get_second_pass_params :3664, define_gf_group :2441): per-frame
 complexity weights from the stats drive both the GF-group ARF boost and
 per-frame bit targets; the total budget is the exact sequence budget so

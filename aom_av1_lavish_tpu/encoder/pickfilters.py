@@ -1,6 +1,6 @@
 """Encoder-side in-loop filter parameter search.
 
-TPU-native re-design of the reference's filter pickers:
+Re-design of the reference's filter pickers:
   * deblocking level search — av1/encoder/picklpf.c
     (av1_pick_filter_level): candidate levels around the q-derived
     guess, scored by frame SSE against the source;

@@ -1,6 +1,6 @@
 """Encoder-side loop restoration search.
 
-TPU-native re-design of av1/encoder/pickrst.c
+Re-design of av1/encoder/pickrst.c
 (av1_pick_filter_restoration :1779): per restoration unit, solve a
 separable symmetric Wiener filter (alternating least squares on the
 CDEF'd recon vs source) and self-guided projection params (closed-form

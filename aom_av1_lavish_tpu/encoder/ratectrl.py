@@ -1,6 +1,6 @@
 """Single-pass rate control: per-frame Q selection + buffer model.
 
-TPU-native re-design of libaom's one-pass rate controller (reference
+Re-design of libaom's one-pass rate controller (reference
 behavior: av1/encoder/ratectrl.c — av1_rc_pick_q_and_bounds :2093,
 av1_rc_postencode_update :2202, av1_rc_update_rate_correction_factors,
 av1_rc_bits_per_mb; buffer model av1_rc_init / update_buffer_level).

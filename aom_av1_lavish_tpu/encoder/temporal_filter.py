@@ -1,6 +1,6 @@
 """ALTREF temporal filtering — MC-weighted multi-frame denoise.
 
-TPU-native re-design of av1_temporal_filter
+Batched re-design of av1_temporal_filter
 (/root/reference/av1/encoder/temporal_filter.c:1284): before coding an
 ARF (or key frame), replace its source with a motion-compensated
 weighted average over a window of neighbor frames, so the boosted-q
@@ -11,7 +11,7 @@ Design inversion vs the reference: libaom walks 32x32 blocks serially
 scalar per-pixel weight loop; here every (neighbor, block) pair is
 scored in one batched SSD cost volume (lax.scan over the offset grid),
 and the per-pixel weights for all neighbors are one fused elementwise
-expression over (n, H, W) arrays — MXU/VPU-friendly, no Python in the
+expression over (n, H, W) arrays — accelerator-friendly, no Python in the
 hot path.
 
 Weight model (tf_compute_weight analog): w = exp(-D / (2 sigma_q^2))
@@ -43,7 +43,7 @@ def _tf_fn(key):
     def fn(center, neighbors):
         """center (H, W) f32; neighbors (n, H, W) f32.
         Returns (mvs (n, Hb, Wb, 2) int32, aligned (n, H, W) f32).
-        The per-neighbor cost volume runs on the MXU
+        The per-neighbor cost volume runs on the device
         (ops/inter_tpu.block_cost_volume) instead of a 289-offset
         shifted-plane scan."""
         from ..ops.inter_tpu import block_cost_volume
@@ -105,7 +105,7 @@ def _blend_fn(key):
 @lru_cache(maxsize=None)
 def _tf_full_fn(key):
     """One jitted program for the whole 4:2:0 temporal filter: luma
-    cost volumes on the MXU, chroma reusing the halved luma MVs — the
+    device cost volumes, chroma reusing the halved luma MVs — the
     reference's per-plane MV sharing (temporal_filter.c
     tf_build_predictor applies the block MV to all planes)."""
     import jax

@@ -1,4 +1,4 @@
-"""TPU low-delay encoder: batched device P-frames + wavefront key frames.
+"""Device low-delay encoder: batched device P-frames + wavefront key frames.
 
 Device side (ops/inter_tpu.py) runs motion search, motion compensation and
 transform coding for ALL 16x16 blocks of a P-frame in one jit call (inter
@@ -52,7 +52,8 @@ class TpuInterFrameEncoder(InterFrameEncoder):
         w = self.mi_cols * 4
         h = self.mi_rows * 4
         assert w % 16 == 0 and h % 16 == 0, \
-            "TPU preset needs a 16px-aligned mi grid (use inter.py otherwise)"
+            "device preset needs a 16px-aligned mi grid " \
+            "(use inter.py otherwise)"
         if not getattr(self, "_external_results", False):
             self._results = None
             self._res_raw = None
@@ -203,8 +204,7 @@ class TpuInterFrameEncoder(InterFrameEncoder):
     def _results_dicts(self):
         """Per-block dict view of the raw device results — built only
         when the Python emitter fallback actually walks them (the
-        native C walker consumes _res_raw directly; at 1080p the dict
-        packing alone costs ~50 ms/frame of pure host overhead)."""
+        native C walker consumes _res_raw directly)."""
         if self._results is None:
             from ..ops.inter_tpu import pack_frame_results
             self._results = pack_frame_results(self._raw16(),
@@ -317,8 +317,8 @@ class TpuInterFrameEncoder(InterFrameEncoder):
 
 
 class TpuLowDelayEncoder:
-    """Key frame (wavefront intra) + P-frames (batched inter), all-TPU
-    compute path with native entropy coding."""
+    """Key frame (wavefront intra) + P-frames (batched inter), all on
+    the device compute path with native entropy coding."""
 
     def __init__(self, width, height, qindex=60, use_native=None,
                  deblock=True):

@@ -1,4 +1,4 @@
-"""TPU-batched all-intra encoder: wavefront device encode + host emit.
+"""Device-batched all-intra encoder: wavefront device encode + host emit.
 
 The compute-heavy per-block work (prediction, transforms, quantization,
 mode RD) runs as batched JAX waves on device (ops/wavefront.py); the host
@@ -31,7 +31,8 @@ class TpuAllIntraEncoder(LossyAllIntraEncoder):
         w = self.mi_cols * 4
         h = self.mi_rows * 4
         assert w % 16 == 0 and h % 16 == 0, \
-            "TPU preset needs a 16px-aligned mi grid (use lossy.py otherwise)"
+            "device preset needs a 16px-aligned mi grid " \
+            "(use lossy.py otherwise)"
         self._wave = WavefrontEncoder(self.fh.base_q_idx, self.lam)
         self._results = None
         return super(LossyAllIntraEncoder, self).encode_frame(

@@ -1,6 +1,6 @@
 """Psy tuning: perceptual rdmult maps (the lavish layer, step 1).
 
-TPU-native re-design of the upstream SSIM tune that the lavish fork's
+Re-design of the upstream SSIM tune that the lavish fork's
 perceptual tunes build on:
   * av1/encoder/encoder_utils.c:1295 av1_set_mb_ssim_rdmult_scaling —
     per-16x16 scaling factor from local (Wiener-style) variance,

@@ -4,7 +4,7 @@ Reference behavior: av1/encoder/cnn.c (av1_cnn_predict_img,
 cnn.h:190) — a small stride/branch CNN evaluated on luma blocks to
 prune partition search (partition_cnn_weights.h).  Re-designed as a
 batched array program: one conv layer is one jax.lax.conv over ALL
-sampled blocks at once, which maps onto the TPU MXU as an implicit
+sampled blocks at once, which maps onto the matrix units as an implicit
 matmul instead of the reference's per-pixel C loops.
 """
 
@@ -32,7 +32,7 @@ class CNNConfig:
 
 def _conv2d(x: np.ndarray, layer: ConvLayer) -> np.ndarray:
     """x: (n, in_ch, h, w) -> (n, out_ch, h', w').  Implemented as an
-    im2col matmul (the MXU-shaped formulation)."""
+    im2col matmul (the matmul-shaped formulation)."""
     n, ic, h, w = x.shape
     oc, ic2, kh, kw = layer.weights.shape
     assert ic == ic2, (ic, ic2)

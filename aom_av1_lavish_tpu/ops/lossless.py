@@ -1,9 +1,9 @@
-"""TPU (JAX/XLA) batched analyze path for the lossless all-intra encoder.
+"""Device (JAX/XLA) batched analyze path for the lossless all-intra encoder.
 
-Design note (TPU-first, not a port): in lossless coding recon == source for
+Design note (batched, not a port): in lossless coding recon == source for
 every coded block, so the per-4x4 DC prediction, residual, Walsh-Hadamard
 transform and quantization have NO sequential dependency — the whole frame
-is one batched integer tensor program (VPU-friendly int32 ops, static
+is one batched integer tensor program (vector-friendly int32 ops, static
 shapes).  Only per-tile entropy coding remains sequential and runs on host
 (native C fast path planned).  The reference computes all of this scalar,
 block-by-block inside the RDO loop (av1/encoder/encodeframe.c).

@@ -1,10 +1,11 @@
-"""Batched integer transforms on TPU (JAX) — bit-exact with the host engine.
+"""Batched integer transforms on the device (JAX), bit-exact with the
+host engine.
 
 The stage tables from common/txfm1d.py compile into vectorized gather +
 arithmetic ops: each stage is out[i] = f(in[src0[i]], in[src1[i]]) with
 per-element weights, executed over an arbitrary batch.
 
-All arithmetic is int32 (TPU-native; int64 is emulated and slow).  The
+All arithmetic is int32 (int64 is emulated on some accelerators).  The
 only spots where the reference uses 64-bit — the butterfly product
 accumulate (av1_txfm.h half_btf) and the sqrt2 rescales — are computed
 exactly in int32 via a hi/lo split: with non-negative weights w < 2^15,

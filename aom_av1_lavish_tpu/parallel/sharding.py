@@ -1,6 +1,6 @@
 """Multi-chip sharding for the encoder (jax.sharding over a device Mesh).
 
-TPU-native mapping of the reference's parallelism (SURVEY §2.7):
+Device mapping of the reference's parallelism (SURVEY §2.7):
   * tile-parallel  → 'tile' mesh axis: AV1 tile columns are fully
     independent (prediction availability and entropy state reset at tile
     edges), so the per-tile analyze shards with NO halo communication —
@@ -158,7 +158,7 @@ def batched_analyze_step(y_batch):
     bit-cost proxy (psum-style reduction across the mesh)."""
     q, zero = jax.vmap(lossless_plane_analyze)(y_batch)
     # rate proxy: total nonzero coefficient magnitude (drives RC later);
-    # float32 — int64 is emulated on TPU and int32 can overflow here
+    # float32: int32 can overflow here
     bits_proxy = jnp.sum(jnp.abs(q).astype(jnp.float32))
     return q, zero, bits_proxy
 

@@ -1,6 +1,6 @@
 /* Native tile entropy encoder: range coder + coefficient tokenizer.
  *
- * The TPU analyze path (ops/lossless.py) produces per-txb quantized
+ * The device analyze path (ops/lossless.py) produces per-txb quantized
  * coefficients in parallel; this module replays the per-tile sequential
  * symbol stream (the only inherently serial stage of AV1 encoding) at
  * native speed.  It mirrors, byte-exactly, the Python reference

@@ -1,6 +1,6 @@
 /* Native inter tile walker for the device-batched P-frame path.
  *
- * The TPU chain program (ops/inter_tpu.py) produces every 16x16 block's
+ * The device chain program (ops/inter_tpu.py) produces every 16x16 block's
  * motion vector, reference pick and quantized coefficients in one batched
  * device program; this module performs the remaining sequential per-tile
  * work natively: forced-split partition walk, skip / intra_inter /

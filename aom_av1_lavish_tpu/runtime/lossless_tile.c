@@ -1,6 +1,6 @@
 /* Native lossless tile walker: full partition walk + symbol emission.
  *
- * The TPU analyze (ops/lossless.py) computes every 4x4 block's quantized
+ * The device analyze (ops/lossless.py) computes every 4x4 block's quantized
  * WHT coefficients in one batched jit call; this module performs the
  * remaining sequential per-tile work natively: fixed partition walk,
  * skip/mode symbol emission, per-txb entropy contexts, and coefficient

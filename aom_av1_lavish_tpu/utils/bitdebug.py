@@ -2,7 +2,7 @@
 
 The reference's debug_util.h:30-40 has the encoder push every
 (bit, prob) into a queue and the decoder pop + compare, pinpointing the
-first diverging symbol.  The TPU build's equivalent is decoder-centric:
+first diverging symbol.  This build's equivalent is decoder-centric:
 decode two candidate streams of the same content with a per-symbol
 trace on the range decoder and report the first ordinal where the
 symbol sequences diverge, with the decode call site as the label.

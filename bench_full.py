@@ -6,13 +6,13 @@ driver-facing single-line benchmark stays in bench.py; this script
 tracks the full performance picture per round:
 
   * lossless all-intra (native walk + batched device analyze) + stages
-  * lossy all-intra: TPU wavefront path and device-RDO quality path
+  * lossy all-intra: device wavefront path and device-RDO quality path
   * inter GOP (KEY + ARF + P chain) at CIF / 720p / 1080p
   * realtime (device streaming path) at CIF / 1080p
   * decode throughput
   * speed-preset ladder (fps + PSNR per cpu-used)
   * BD-rate vs aomenc (tools/bdrate.py quick sweep)
-  * TPU-hardware validation record (compiled-kernel conformance)
+  * device validation record (compiled-kernel conformance)
 
 vs_baseline compares against the reference aomenc/aomdec (single
 thread) on the same machine where the oracle binaries exist.
@@ -25,13 +25,6 @@ import sys
 import time
 
 import numpy as np
-
-# persistent XLA compile cache: first-run compiles of the big device
-# programs (~40 s at 1080p) amortize across bench invocations
-os.environ.setdefault(
-    "AVL_JAX_CACHE_DIR",
-    os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                 ".jax_cache"))
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -96,9 +89,9 @@ def psnr_y(dec_frames, src_frames):
 
 def main():
     import tempfile
-    from bench import _ensure_backend
-    backend = _ensure_backend()
-    results = [dict(metric="backend", value=backend)]
+    from bench import require_gpu
+    device = require_gpu()
+    results = [dict(metric="device", value=device)]
     out_path = os.path.join(ROOT, "BENCH_DETAIL.json")
 
     def add(metric, value, unit=None, vs=None, **extra):
@@ -148,7 +141,7 @@ def main():
     add("lossless_stage_walk_ms_per_frame",
         round((time.perf_counter() - t0) / N * 1000, 2), "ms")
 
-    # 2. lossy all-intra (TPU wavefront) -------------------------------
+    # 2. lossy all-intra (device wavefront) ----------------------------
     from aom_av1_lavish_tpu.encoder.tpu_intra import encode_tpu_ivf
     out2 = os.path.join(td, "ai.ivf")
     dt = timed(encode_tpu_ivf, out2, frames, W, H, 60)
@@ -197,47 +190,6 @@ def main():
         v = N / dt
         add(f"inter_gop_tpu_{tag}", round(v, 3), "frames/s",
             v / ref if ref else None, stage_ms_per_frame=stage)
-        if (w, h) == (1920, 1088):
-            # device utilization of the compiled chain program (the
-            # VERDICT's MFU/roofline record): XLA cost analysis over
-            # the measured chain wall-clock vs v5e peaks
-            import bench as _b
-            _b.W, _b.H, _b.QINDEX = w, h, 60
-            chain_s = profiler.times().get("gop/chain_device", 0.0)
-            if chain_s > 0:
-                fu, bu = _b.device_util(chain_s, N)
-                add("device_flops_util_chain_1080p", round(fu, 5),
-                    "fraction of v5e bf16 peak")
-                add("device_hbm_util_chain_1080p", round(bu, 4),
-                    "fraction of v5e HBM peak")
-
-    # 3b. same code, CPU backend (the round-2/3 inversion check: the
-    # TPU run must now beat the host-fallback run of the same program)
-    code = (
-        "import sys, time, tempfile, os; sys.path.insert(0, %r);"
-        "from bench_full import make_frames;"
-        "from aom_av1_lavish_tpu.encoder.gop import encode_gop_ivf;"
-        "f = make_frames(n=8, w=1280, h=720); td = tempfile.mkdtemp();"
-        "p = os.path.join(td, 'g.ivf');"
-        "r = lambda: encode_gop_ivf(p, f, 1280, 720, qindex=60,"
-        " gf_length=8, use_tpu=True, enable_cdef=False);"
-        "r(); t0 = time.perf_counter(); r();"
-        "print('FPS', 8 / (time.perf_counter() - t0))" % ROOT)
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
-    try:
-        r = subprocess.run([sys.executable, "-c", code], env=env,
-                           capture_output=True, text=True, timeout=1500)
-        cpu_fps = None
-        for line in r.stdout.splitlines():
-            if line.startswith("FPS"):
-                cpu_fps = float(line.split()[1])
-        tpu_fps = next(x["value"] for x in results
-                       if x["metric"] == "inter_gop_tpu_1280x720")
-        add("inter_gop_cpu_backend_1280x720", round(cpu_fps, 3),
-            "frames/s", None,
-            tpu_over_cpu=round(tpu_fps / cpu_fps, 2) if cpu_fps else None)
-    except Exception as e:                            # pragma: no cover
-        add("inter_gop_cpu_backend_1280x720", f"error: {e}")
 
     # 4. realtime (device streaming) at CIF / 1080p --------------------
     from aom_av1_lavish_tpu.encoder.nonrd import (encode_realtime_ivf,
@@ -307,7 +259,7 @@ def main():
         else:
             add("bdrate_error", (r.stderr or "")[-300:])
 
-    # 8. TPU-hardware validation: compiled kernels must produce streams
+    # 8. device validation: compiled kernels must produce streams
     # stock aomdec accepts bit-exactly (the SIMD-vs-C contract run on
     # the real backend — conformance subset, not interpreter mode)
     try:
@@ -331,7 +283,7 @@ def main():
                     for a, b in zip(fo, fr2)))
             ok = bool(checks) and all(checks)
         add("tpu_validation", "pass" if ok else "fail",
-            backend=backend, streams_checked=len(checks) if ok is not None
+            device=device, streams_checked=len(checks) if ok is not None
             else 0)
     except Exception as e:                            # pragma: no cover
         add("tpu_validation", f"error: {e}")

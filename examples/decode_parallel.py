@@ -7,11 +7,9 @@ import hashlib
 import sys
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
-from aom_av1_lavish_tpu.utils.backend import ensure_backend  # noqa: E402
 
 
 def main():
-    ensure_backend()
     from aom_av1_lavish_tpu.decoder.parallel import decode_ivf_parallel
     workers = int(sys.argv[2]) if len(sys.argv) > 2 else 4
     frames = decode_ivf_parallel(sys.argv[1], workers=workers)

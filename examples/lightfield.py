@@ -3,7 +3,7 @@
 The reference's lightfield pipeline (examples/lightfield_encoder.c /
 lightfield_decoder.c, large_scale_tile mode av1/common/enums.h:55)
 codes a camera array as one massively-tiled frame and later decodes
-single camera views in O(one tile).  This example does the TPU-native
+single camera views in O(one tile).  This example does the batched
 equivalent with this framework's independent-tile machinery:
 
   1. pack N camera views side by side and encode them as ONE lossless

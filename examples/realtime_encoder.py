@@ -6,11 +6,9 @@ examples/lossless_encoder.c usage=1 path / nonrd_pickmode.c).
 import sys
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
-from aom_av1_lavish_tpu.utils.backend import ensure_backend  # noqa: E402
 
 
 def main():
-    ensure_backend()
     from aom_av1_lavish_tpu.encoder.nonrd import encode_realtime_ivf
     from aom_av1_lavish_tpu.utils.y4m import read_y4m
     frames, w, h, _ = read_y4m(sys.argv[1])

@@ -5,11 +5,9 @@
 import sys
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
-from aom_av1_lavish_tpu.utils.backend import ensure_backend  # noqa: E402
 
 
 def main():
-    ensure_backend()
     from aom_av1_lavish_tpu.encoder.gop import encode_gop_ivf
     from aom_av1_lavish_tpu.utils.y4m import read_y4m
     src, out = sys.argv[1], sys.argv[2]

@@ -1,4 +1,4 @@
-"""TPU low-delay encoder: device-batched P-frames must be conformant."""
+"""Device low-delay encoder: device-batched P-frames must be conformant."""
 
 import os
 import subprocess

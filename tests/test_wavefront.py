@@ -1,4 +1,4 @@
-"""Wavefront TPU encoder: conformance vs own decoder and stock aomdec."""
+"""Wavefront device encoder: conformance vs own decoder and stock aomdec."""
 
 import os
 import subprocess

@@ -184,8 +184,6 @@ def sweep(clip_frames, enc_fn, qs, tmpdir, tag):
 
 def main():
     sys.path.insert(0, ROOT)
-    from bench import _ensure_backend
-    _ensure_backend()
     ap = argparse.ArgumentParser()
     ap.add_argument("--quick", action="store_true",
                     help="one clip; wavefront all-intra instead of RDO")

@@ -1,6 +1,6 @@
 /* Thin C wrapper exposing the *reference* range coder (linked from the
  * read-only reference checkout) as a shared library for byte-exact
- * cross-checking of our TPU-native implementation in tests.
+ * cross-checking of our implementation in tests.
  * This file is test scaffolding only; it is not part of the framework. */
 #include <stdint.h>
 #include <string.h>
